@@ -1,7 +1,8 @@
 """Secondary benchmark: full SLAM pipeline (tracking + threaded mapping +
-local BA) frames/s, and local-BA solver iterations/s, on the available
-accelerator.  bench.py remains the headline single metric; this script
-prints one JSON line per metric for the BASELINE.md table.
+local BA) frames/s, and local-BA solver iterations/s, on one NVIDIA GPU.
+bench.py remains the headline single metric; this script prints one JSON
+line per metric, each naming its device.  Without a GPU it exits
+non-zero and prints no result.
 """
 
 import json
@@ -9,7 +10,9 @@ import time
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from plslam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +21,8 @@ from plslam_tpu.backend import ba as ba_mod
 from plslam_tpu.backend.mapping import MapConfig
 from plslam_tpu.config import PLSLAMConfig
 from plslam_tpu.core.camera import StereoCamera
-from plslam_tpu.io.synthetic import SyntheticScene, circular_trajectory
+from plslam_tpu.io.synthetic import (SyntheticScene, ba_problem,
+                                    circular_trajectory)
 from plslam_tpu.pipeline import PLSLAM
 
 N_FRAMES = 16
@@ -55,24 +59,16 @@ def bench_slam():
 def bench_ba_iters():
     """LM iterations/s of the Schur-complement local BA at the default
     local-map problem size."""
-    import sys
-    sys.path.insert(0, ".")
-    from tests.test_ba import make_problem
-
-    prob, _, _, _ = make_problem(K=8, P=512, L=64)
-    prob = jax.tree.map(
-        lambda x: x.astype(jnp.float32) if x.dtype == jnp.float64 else x,
-        prob)
+    prob, _, _, _ = ba_problem(_CAM32, K=8, P=512, L=64)
     cfg = ba_mod.BAConfig()
     run = jax.jit(lambda p: ba_mod.lm_rounds(p, _CAM32, cfg, p.p_valid,
                                              p.l_valid, 10))
-    r = run(prob)
-    np.asarray(jax.tree.leaves(r)[0])
+    jax.block_until_ready(run(prob))
     n_rep = 5
     t0 = time.time()
     for _ in range(n_rep):
         r = run(prob)
-    np.asarray(jax.tree.leaves(r)[0])
+    jax.block_until_ready(r)
     return 10 * n_rep / (time.time() - t0)
 
 
@@ -81,14 +77,24 @@ _CAM32 = StereoCamera.create(435.2, 435.2, 367.4, 252.2, 0.110074,
 
 
 def main():
+    import sys
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench_slam: the default JAX device is {dev.platform!r}, "
+              f"not a GPU; no result", file=sys.stderr)
+        sys.exit(2)
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices())}
     fps, n_kf = bench_slam()
     print(json.dumps({"metric": "full_slam_frames_per_s",
                       "value": round(fps, 3), "unit": "frames/s",
-                      "vs_baseline": round(fps / 20.0, 3)}))
+                      "vs_baseline": round(fps / 20.0, 3),
+                      "device": device}))
     iters = bench_ba_iters()
     print(json.dumps({"metric": "local_ba_lm_iterations_per_s",
                       "value": round(iters, 2), "unit": "iters/s",
-                      "vs_baseline": None}))
+                      "vs_baseline": None, "device": device}))
     print(f"# keyframes mapped during bench: {n_kf}")
 
 

@@ -21,6 +21,7 @@ import numpy as np
 
 from ..core import lie
 from ..core.camera import StereoCamera
+from ..core.numerics import full_f32_matmuls
 from ..frontend.features import TrackedLines, TrackedPoints
 from ..frontend import tracker as trk
 from ..ops import matching as M
@@ -104,6 +105,12 @@ def build_pgo_edges(covis: np.ndarray, T_old: np.ndarray, covis_th: int,
     e_T.append(np.linalg.inv(T_rel))
     e_w.append(1.0)
     return e_i, e_j, e_T, e_w
+
+
+# robust GN relative pose of the geometric verification, at full f32
+# matmul precision like the tracker's own program (vo._match_and_track)
+_optimize_pose = jax.jit(full_f32_matmuls(trk.optimize_pose),
+                         static_argnums=3)
 
 
 class LoopCloser:
@@ -390,8 +397,7 @@ class LoopCloser:
         if ls is None:
             ls = _empty_lines(8)
             ls_pairs = np.zeros((0, 2), np.int64)
-        est, _, _ = jax.jit(trk.optimize_pose, static_argnums=3)(
-            pts, ls, self.cam, cfgT)
+        est, _, _ = _optimize_pose(pts, ls, self.cam, cfgT)
         if not bool(est.good):
             return fail
         # acceptance gates (:4988-5023)
@@ -475,7 +481,7 @@ class LoopCloser:
             e_i=jnp.asarray(e_i, jnp.int32),
             e_j=jnp.asarray(e_j, jnp.int32),
             e_T=jnp.asarray(np.stack(e_T)),
-            e_info=jnp.asarray(e_w, jnp.float64),
+            e_info=jnp.asarray(np.asarray(e_w)),
             e_valid=jnp.ones(len(e_i), bool),
         )
         g2 = jax.jit(pgo_mod.optimize, static_argnums=1)(g, self.cfg.pgo_iters)

@@ -6,13 +6,13 @@ loopClosureOptimizationCovGraphG2O (:5301-5531): g2o VertexSE3 per keyframe,
 EdgeSE3 between consecutive / covisible pairs plus the loop-closure edges,
 gauge fixed at KF0 (Cov variant :5368).
 
-TPU-first design: all edge residuals e_ij = log(Zij^-1 T_i^-1 T_j) and
+Design: all edge residuals e_ij = log(Zij^-1 T_i^-1 T_j) and
 their Jacobians (per-edge jacfwd over the 12-dim tangent of the two incident
 poses — exact, batched with vmap) are evaluated in one program; the sparse
 Hessian is scatter-added into a dense (6K, 6K) system solved by scan-
 Cholesky.  Keyframe counts here are <= a few hundred, so the dense reduced
-system is small; the multi-host variant shards edge assembly and psum-
-reduces the blocks (parallel/dist_ba.py pattern).
+system is small; the distributed variant shards edge assembly and psum-
+reduces the blocks (parallel/dist_match.py).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core import lie, linalg
+from ..core.numerics import full_f32_matmuls
 
 
 class PoseGraph(NamedTuple):
@@ -78,12 +79,10 @@ def build_system(g: PoseGraph):
 
 def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-6) -> PoseGraph:
     """Gauss-Newton with gauge handling: fixed/invalid poses get identity
-    rows, zero rhs.  Traced at full f32 matmul precision — the PGO runs
-    in f32 on TPU at loop-closure time, and the default bf16 passes
-    corrupt Hessian-level algebra (same rationale as ba._f32_matmuls)."""
-    from .ba import _f32_matmuls
-
-    return _f32_matmuls(_optimize)(g, iters, damping)
+    rows, zero rhs.  Traced at full f32 matmul precision: reduced-
+    precision passes corrupt Hessian-level algebra (same rationale as
+    the BA solver entries)."""
+    return full_f32_matmuls(_optimize)(g, iters, damping)
 
 
 def _optimize(g: PoseGraph, iters: int, damping: float) -> PoseGraph:

@@ -5,7 +5,7 @@ transform/score over 256-bit ORB descriptors (hierarchical k-means tree,
 L1 scoring, ScoringObject.cpp) and the conf_matrix rows built per keyframe
 (mapHandler.cpp insertKFBowVector* :4118-4239).
 
-TPU-first design: the vocabulary is a fixed (branching k, depth d) tree
+Design: the vocabulary is a fixed (branching k, depth d) tree
 stored as one packed descriptor array per level; transform() descends the
 tree for all N descriptors at once (each step is a batched Hamming argmin
 over k children = popcount matmul); BoW vectors are dense (k^d,) L1-

@@ -1,13 +1,13 @@
 """Batched multi-sequence visual odometry — the data-parallel front-end.
 
-The reference tracks one stereo stream on CPU threads; on TPU the natural
-scaling axis for offline/production workloads is the *sequence batch*: B
-independent stereo streams tracked in lockstep by vmapping the entire
-per-frame program (detection, stereo matching, f2f association, robust GN,
-keyframe statistics) over a leading sequence axis.  One chip then amortizes
-every kernel across B streams; across chips, shard the batch axis over a
-mesh with jax.sharding (SURVEY.md §2.4: "DP = per-frame / per-feature
-batching").
+The reference tracks one stereo stream on CPU threads; on an accelerator
+the natural scaling axis for offline/production workloads is the
+*sequence batch*: B independent stereo streams tracked in lockstep by
+vmapping the entire per-frame program (detection, stereo matching, f2f
+association, robust GN, keyframe statistics) over a leading sequence axis.
+One device then amortizes every kernel across B streams; across devices,
+shard the batch axis over a mesh with jax.sharding (SURVEY.md §2.4:
+"DP = per-frame / per-feature batching").
 
 Semantics per stream are EXACTLY VisualOdometry's: the same functions are
 reused under vmap / flat image batching, so a batch reproduces the scalar
@@ -23,9 +23,10 @@ import jax
 import jax.numpy as jnp
 
 from .core.camera import StereoCamera
+from .core.numerics import full_f32_matmuls
 from .frontend.frame import (FrontendConfig, _match_stereo_lines,
-                             _match_stereo_points, make_batched_detectors,
-                             make_sharded_detectors)
+                             _match_stereo_points, _pairs,
+                             make_batched_detectors, make_sharded_detectors)
 from .frontend.features import StereoFeatures
 from .frontend.tracker import TrackerConfig
 from .vo import VOParams, VOState, _match_and_track
@@ -56,51 +57,14 @@ class BatchedVisualOdometry:
         self.params = VOParams(adaptative_fast=adaptative_fast,
                                use_motion_model=use_motion_model)
         det_pts, det_ls = make_batched_detectors(fcfg)
-        self._det_pts1 = det_pts
-        self._det_ls1 = det_ls
-        self._stack_trees = jax.jit(
-            lambda trees: jax.tree.map(lambda *xs: jnp.stack(xs), *trees))
         # Detection runs as ONE flat (2B, H, W) batch program — the same
-        # formulation the sharded per-device path uses.  (A VMAPPED
-        # (B, 2, H, W) pair program was 3x slower at B=4 — bad layouts —
-        # but the flat image-batch axis keeps the r2 per-cell-argmax and
-        # banded-matmul kernels' layouts intact while amortizing dispatch
-        # across the whole batch.)
-        from .frontend.frame import (_detect_describe_lines,
-                                     _detect_describe_lines_batch,
-                                     _detect_describe_points_batch,
-                                     _use_pallas_patches)
-
-        def _pts_flat(imgs, th):
-            B = imgs.shape[0]
-            flat = imgs.reshape((B * 2,) + imgs.shape[2:])
-            out = _detect_describe_points_batch(flat, fcfg,
-                                                jnp.repeat(th, 2))
-            return jax.tree.map(
-                lambda x: x.reshape((B, 2) + x.shape[1:]), out)
-
-        def _ls_flat(imgs):
-            B = imgs.shape[0]
-            flat = imgs.reshape((B * 2,) + imgs.shape[2:])
-            if _use_pallas_patches(fcfg):
-                out = _detect_describe_lines_batch(flat, fcfg)
-            else:
-                out = jax.vmap(
-                    lambda im: _detect_describe_lines(im, fcfg))(flat)
-            return jax.tree.map(
-                lambda x: x.reshape((B, 2) + x.shape[1:]), out)
-
-        self._det_pts_flat = jax.jit(_pts_flat)
-        self._det_ls_flat = jax.jit(_ls_flat)
-        # one fused detection dispatch for the whole batch (same win as
-        # VisualOdometry._det_both: per-dispatch host overhead dominates
-        # on the remote runtime)
-        self._det_both_flat = jax.jit(
-            lambda imgs, th: (_pts_flat(imgs, th), _ls_flat(imgs)))
-        # under a mesh sharding the batch axis must stay partitioned:
-        # shard_map runs the full batch detection program per device on
-        # its local sub-batch, so the Pallas kernels (which cannot be
-        # vmapped — ANY-space operands) still run when distributed
+        # formulation the sharded per-device path uses — in one dispatch
+        # for the whole batch.  Under a mesh sharding the batch axis must
+        # stay partitioned, so each device runs that program on its local
+        # sub-batch (make_sharded_detectors).
+        self._det_both_flat = jax.jit(lambda imgs, th: (
+            _pairs(det_pts, imgs, jnp.repeat(th, 2)),
+            _pairs(det_ls, imgs)))
         if sharding is not None:
             self._det_pts_v, self._det_ls_v = make_sharded_detectors(
                 fcfg, sharding)
@@ -117,7 +81,7 @@ class BatchedVisualOdometry:
                                            take(seg, 1), ldesc[1], cam, fcfg)
             return StereoFeatures(points=points, lines=line_set)
 
-        self._match_pair = jax.jit(jax.vmap(_match_pair))
+        self._match_pair = jax.jit(full_f32_matmuls(jax.vmap(_match_pair)))
         self._step = jax.jit(
             jax.vmap(functools.partial(
                 _match_and_track.__wrapped__,  # un-jitted body

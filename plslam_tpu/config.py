@@ -17,11 +17,6 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
 
-try:
-    import yaml
-except Exception:  # pragma: no cover - yaml is in the base image
-    yaml = None
-
 
 @dataclass
 class PLSLAMConfig:
@@ -161,9 +156,9 @@ class PLSLAMConfig:
 
     @classmethod
     def from_yaml(cls, path: str) -> "PLSLAMConfig":
+        import yaml  # only YAML loading needs it
+
         cfg = cls()
-        if yaml is None:
-            return cfg
         with open(path) as f:
             # yaml-cpp (the reference's loader) tolerates literal TABs as
             # whitespace — config/config/config.yaml ships with one — but

@@ -6,7 +6,7 @@ inverse_se3 :111).  Twist layout follows the reference convention
 ``x = [t(3); w(3)]`` — translation first, rotation last.
 
 Everything here is shape-polymorphic over leading batch dimensions (use
-``jax.vmap``) and dtype-polymorphic (float32 on TPU, float64 in CPU tests).
+``jax.vmap``) and dtype-polymorphic (float32 on the accelerator, float64 in CPU tests).
 All branches are implemented with ``jnp.where`` on Taylor-safe arguments so
 the functions are jit- and grad-safe at theta -> 0.
 """

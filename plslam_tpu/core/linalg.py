@@ -1,8 +1,8 @@
 """Small-matrix linear algebra without LAPACK custom calls.
 
-The TPU compile path in this environment implements LU/eig only for f32 —
-and batched tiny LAPACK dispatches are slow on TPU regardless.  BA and the
-pose tracker only ever need:
+Small batched factorizations fuse into the surrounding programs as plain
+jnp code instead of dispatching one library call each.  BA and the pose
+tracker only ever need:
 
 - batched 3x3 / 4x4 inverses (landmark blocks)       -> closed-form adjugate
 - one small dense SPD solve (6x6 .. ~200x200)        -> scan Cholesky
@@ -72,20 +72,17 @@ def inv4x4(A: jax.Array) -> jax.Array:
 
 # Unroll factorizations/substitutions up to this size: the 6x6 tracker
 # solve and the <=64-dim Schur reduced-camera solves sit inside scan
-# bodies where per-step loop overhead dominates (GN(15) 3.36 -> 2.24 ms,
-# BA 10 iters 24.8 -> 21.9 ms on the benched chip); larger solves (PGO,
-# multi-block reduced systems) stay lax.scan to bound compile time.
+# bodies where per-step loop overhead dominates; larger solves (PGO,
+# multi-block reduced systems) stay lax.scan to bound compile time.  The
+# thresholds are not yet tuned on the GPU.
 _UNROLL_N = 64
 
 # Above this size, hand over to XLA's native blocked Cholesky /
 # TriangularSolve (jnp.linalg.cholesky + jax.scipy.linalg.solve_triangular).
 # The scan forms run one COLUMN per sequential step — a 512-keyframe
 # reduced camera system is a 3072x3072 solve, i.e. 3072 latency-bound
-# scan steps (minutes on a remote-dispatch runtime), while the blocked
-# HLOs run panel-at-a-time on the MXU.  Both are supported on the TPU
-# compile path (unlike LU/eig, which this module exists to avoid) and on
-# CPU f64 (LAPACK).  The scan forms stay for small/mid systems where
-# they fuse into surrounding programs.
+# scan steps, while the blocked HLOs run panel-at-a-time.  The scan forms
+# stay for small/mid systems where they fuse into surrounding programs.
 _BLOCKED_N = 192
 
 

@@ -71,7 +71,7 @@ def clipped_mad_scale_pair(res_a: jax.Array, mask_a: jax.Array,
 
     The GN tracker needs the point and line scales every iteration; done
     separately that is 4 sorts per iteration (median + median-of-
-    deviations, per modality).  A TPU sort is vectorized across leading
+    deviations, per modality).  A device sort is vectorized across leading
     axes, so padding the two residual vectors to a common width and
     sorting a (2, N) stack costs about one sort — this helper halves the
     sort count of the tracker's hottest sequential loop.  Per-row results

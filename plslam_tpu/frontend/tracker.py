@@ -9,7 +9,7 @@ f2fLineSegmentOverlap (:186).
 The reference accumulates per-feature 6x6 outer products in a scalar loop;
 here residuals and Jacobians for all features are computed as one batched
 program and reduced with einsum — H = sum_i w_i J_i J_i^T is a single
-(N,6)x(N,6) contraction that XLA maps onto the MXU.
+(N,6)x(N,6) contraction.
 
 Update convention: delta solves H delta = g with g = sum w_i J_i r_i, and
 the pose update is DT <- exp(-delta) @ DT (left-multiplicative, equivalent

@@ -1,18 +1,36 @@
 """ctypes bindings for the native threaded dataloader.
 
-Falls back cleanly when the shared library hasn't been built (build with
-``make -C plslam_tpu/native``); io/euroc.py remains the pure-Python path.
+The shared library is built from ``dataloader.cpp`` at first use
+(``make -C plslam_tpu/native libplslam_native.so``, about two seconds).
+Where it cannot be built (no compiler or no libpng), ``available()`` is
+False and io/euroc.py remains the pure-Python path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import subprocess
 
 import numpy as np
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "libplslam_native.so")
+_DIR = os.path.dirname(__file__)
+_LIB_PATH = os.path.join(_DIR, "libplslam_native.so")
 _lib = None
+
+
+def _build() -> bool:
+    """Build the library from source once; a file lock keeps concurrent
+    processes (test workers) from racing on the same output file."""
+    with open(os.path.join(_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(_LIB_PATH):
+            r = subprocess.run(["make", "-C", _DIR, "libplslam_native.so"],
+                               capture_output=True)
+            if r.returncode != 0:
+                return False
+    return os.path.exists(_LIB_PATH)
 
 
 def available() -> bool:
@@ -23,7 +41,7 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
+    if not os.path.exists(_LIB_PATH) and not _build():
         return None
     lib = ctypes.CDLL(_LIB_PATH)
     lib.loader_create.restype = ctypes.c_void_p
@@ -64,7 +82,8 @@ class NativeStereoLoader:
         lib = _load()
         if lib is None:
             raise RuntimeError(
-                "native loader not built; run make -C plslam_tpu/native")
+                "native loader could not be built; run "
+                "make -C plslam_tpu/native to see why")
         self._lib = lib
         self.width, self.height = width, height
         self.n = len(files_l)

@@ -1,15 +1,14 @@
 """Binary descriptor utilities: packing, unpacking, Hamming distance.
 
 The reference computes 256-bit ORB/LBD Hamming distances with a scalar
-popcount loop over 8 int32 words per pair (src2/matching.cpp:93-109).  On
-TPU the same computation is reshaped onto the MXU: unpack each descriptor to
-a +/-1 vector b in {-1,+1}^256, then
+popcount loop over 8 int32 words per pair (src2/matching.cpp:93-109).
+Here the same computation is one matmul: unpack each descriptor to a +/-1
+vector b in {-1,+1}^256, then
 
     popcount(a XOR b) = (256 - <a_pm, b_pm>) / 2
 
-so an (N1, 256) x (256, N2) int8/bf16 matmul produces the full distance
-matrix in one systolic pass.  A `lax.population_count` path is kept as the
-exact oracle and for tiny inputs.
+so an (N1, 256) x (256, N2) matmul produces the full distance matrix.  A
+`lax.population_count` path is kept as the exact oracle.
 
 Descriptors are stored packed as uint32[8] (256 bits) with a validity mask.
 """
@@ -48,14 +47,17 @@ def hamming_distance_matrix_popcount(d1: jax.Array, d2: jax.Array) -> jax.Array:
 
 
 def hamming_distance_matrix(d1: jax.Array, d2: jax.Array) -> jax.Array:
-    """(N1, N2) Hamming distances via the MXU +/-1 matmul identity.
+    """(N1, N2) Hamming distances via the +/-1 matmul identity.
 
-    Exact: the dot of two {-1,+1}^256 vectors is an integer in [-256, 256]
-    representable exactly in f32/bf16-accumulated-f32.
+    Exact at any matmul precision: +/-1 is exact in bf16 and TF32, and the
+    dot of two {-1,+1}^256 vectors is an integer in [-256, 256], exact in
+    an f32 accumulator.  So this one matmul states DEFAULT precision even
+    inside a full-f32 scope.
     """
     b1 = unpack_bits(d1).astype(jnp.float32) * 2.0 - 1.0
     b2 = unpack_bits(d2).astype(jnp.float32) * 2.0 - 1.0
     dot = jax.lax.dot_general(
-        b1, b2, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-    )
+        b1, b2, (((1,), (1,)), ((), ())),
+        precision=jax.lax.Precision.DEFAULT,
+        preferred_element_type=jnp.float32)
     return ((DESC_BITS - dot) * 0.5).astype(jnp.int32)

@@ -1,7 +1,7 @@
 """FAST-9/16 corner detection as a dense, fixed-shape program.
 
 Replaces OpenCV's ORB detector stage (stereoFrame.cpp:105-119).  The
-classic implementation walks pixels and early-exits; on TPU the whole
+classic implementation walks pixels and early-exits; here the whole
 image is evaluated at once:
 
 - the 16-pixel Bresenham ring is materialized as 16 rolled copies of the
@@ -47,8 +47,8 @@ def fast_score_map(img: jax.Array, threshold: float) -> jax.Array:
     -min_k max_window9(ring - I).  Both come from ONE doubling chain of
     windowed mins/maxes over the wrapped ring (width 2 -> 4 -> 8 -> 9),
     ~92 elementwise ops per pixel per extremum instead of the 143 of the
-    naive 9-slice stack — the score stage is VPU-bound, so op count is
-    wall time.  Results are bit-identical (min/max are exact)."""
+    naive 9-slice stack.  Results are bit-identical (min/max are
+    exact)."""
     diff = [jnp.roll(img, (-dy, -dx), axis=(0, 1)) - img for (dx, dy) in RING]
     d2 = diff + diff[:ARC - 1]                # wrapped ring, 24 entries
 
@@ -76,23 +76,13 @@ def nms3x3(score: jax.Array) -> jax.Array:
 
 
 def detect_level(img: jax.Array, threshold: float, max_kp: int,
-                 border: int, pallas: bool = False) -> Keypoints:
+                 border: int) -> Keypoints:
     """Top-K FAST corners on one image with border exclusion
     (Config::orbEdgeTh=19) and parabolic sub-pixel refinement — integer
     corner coordinates would quantize stereo disparity by a full pixel,
-    which at EuRoC depths is tens of centimeters of depth error.
-
-    ``pallas=True`` computes score+NMS with the fused VMEM kernel
-    (ops/pallas_fast.py; TPU only, bit-identical away from the border)."""
-    H, W = img.shape
-    if pallas:
-        from .pallas_fast import fast_score_nms
-
-        raw, s = fast_score_nms(img, threshold)
-    else:
-        raw = fast_score_map(img, threshold)
-        s = nms3x3(raw)
-    return select_corners(raw, s, max_kp, border)
+    which at EuRoC depths is tens of centimeters of depth error."""
+    raw = fast_score_map(img, threshold)
+    return select_corners(raw, nms3x3(raw), max_kp, border)
 
 
 CELL = 12  # spatial-bucket side (px) for per-cell corner selection
@@ -100,14 +90,12 @@ CELL = 12  # spatial-bucket side (px) for per-cell corner selection
 
 def select_corners(raw: jax.Array, s: jax.Array, max_kp: int,
                    border: int, cell: int | None = CELL) -> Keypoints:
-    """Top-K + sub-pixel refinement on precomputed (raw, nms) score maps
-    (split out so batched/Pallas score producers can share it).
+    """Top-K + sub-pixel refinement on precomputed (raw, nms) score maps.
 
     ``cell`` selects the per-cell-argmax strategy: the NMS map is bucketed
     into cell x cell tiles, each tile contributes its best corner, and the
     top-K runs over the ~2.5k tile maxima instead of sorting all H*W
-    scores (a full-image ``lax.top_k`` is sort-bound on TPU, ~2-3 ms per
-    level).  One corner per 12x12 px also enforces the spatial uniformity
+    scores.  One corner per 12x12 px also enforces the spatial uniformity
     the reference gets from its 48x64 bucket grids (stereoFrame.h:51-52).
     ``cell=None`` restores the exact global top-K."""
     H, W = raw.shape
@@ -163,15 +151,15 @@ def select_corners(raw: jax.Array, s: jax.Array, max_kp: int,
 
 
 def detect_pyramid(levels, threshold: float, max_total: int, border: int,
-                   scale_factor: float, per_level: int | None = None,
-                   pallas: bool = False) -> Keypoints:
+                   scale_factor: float,
+                   per_level: int | None = None) -> Keypoints:
     """Detect on every pyramid level, scale coords to level 0, keep global
     top max_total by score (ORB multi-scale semantics)."""
     n = len(levels)
     per = per_level or max_total // n + 1
     all_xy, all_s, all_l, all_v = [], [], [], []
     for i, img in enumerate(levels):
-        kp = detect_level(img, threshold, per, border, pallas=pallas)
+        kp = detect_level(img, threshold, per, border)
         scale = scale_factor ** i
         all_xy.append(kp.xy * scale)
         all_s.append(kp.score)
@@ -183,41 +171,3 @@ def detect_pyramid(levels, threshold: float, max_total: int, border: int,
     va = jnp.concatenate(all_v)
     vals, idx = jax.lax.top_k(jnp.where(va, sc, -1.0), max_total)
     return Keypoints(xy=xy[idx], score=vals, level=lv[idx], valid=vals > 0)
-
-
-def detect_pyramid_batch(levels, threshold, max_total: int, border: int,
-                         scale_factor: float, per_level: int | None = None,
-                         pallas: bool = False) -> Keypoints:
-    """Batched multi-scale detection: ``levels`` is a list of (B, h_l, w_l)
-    image stacks.  The score+NMS stage runs once per level over the whole
-    batch (through the Pallas kernel's own batch grid when enabled — a
-    vmapped pallas_call cannot batch an ANY-space operand), selection is
-    vmapped.  Returns Keypoints with leading (B,) axes."""
-    n = len(levels)
-    per = per_level or max_total // n + 1
-    all_xy, all_s, all_l, all_v = [], [], [], []
-    B = levels[0].shape[0]
-    for i, imgs in enumerate(levels):
-        thr = jnp.asarray(threshold)
-        if pallas:
-            from .pallas_fast import fast_score_nms_batch
-
-            raw, s = fast_score_nms_batch(imgs, thr)
-        else:
-            raw = jax.vmap(fast_score_map,
-                           in_axes=(0, 0 if thr.ndim else None))(imgs, thr)
-            s = jax.vmap(nms3x3)(raw)
-        kp = jax.vmap(lambda r, ss: select_corners(r, ss, per, border))(raw, s)
-        scale = scale_factor ** i
-        all_xy.append(kp.xy * scale)
-        all_s.append(kp.score)
-        all_l.append(jnp.full((B, per), i, jnp.int32))
-        all_v.append(kp.valid)
-    xy = jnp.concatenate(all_xy, axis=1)
-    sc = jnp.concatenate(all_s, axis=1)
-    lv = jnp.concatenate(all_l, axis=1)
-    va = jnp.concatenate(all_v, axis=1)
-    vals, idx = jax.lax.top_k(jnp.where(va, sc, -1.0), max_total)
-    take = jnp.take_along_axis
-    return Keypoints(xy=take(xy, idx[..., None], axis=1), score=vals,
-                     level=take(lv, idx, axis=1), valid=vals > 0)

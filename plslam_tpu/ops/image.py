@@ -1,17 +1,11 @@
 """Basic image ops: separable Gaussian blur, Sobel gradients, pyramids,
 bilinear sampling.  All are fixed-shape jnp programs that XLA fuses.
 
-Separable small-kernel filters are formulated as **banded-matrix MXU
-matmuls** (out = K_rows @ img @ K_cols^T) instead of lax.conv:
-
-- the TPU conv emitter picks a batch-in-lanes output layout
-  ({0,1,3,2:T(1,128)}), and any Mosaic custom call consuming the result
-  demands the default {2,1,0:T(8,128)} layout — XLA inserts a relayout
-  copy measured at ~13 ms per frame pair, 6x the whole describe stage;
-- the conv's default accumulation loses ~3 decimal digits (0.8 absolute
-  on a 0..255 image vs a float64 oracle); the banded matmul in HIGHEST
-  precision is exact to 3e-5 and costs ~0.9 GFLOP per 480x752 image —
-  noise for the MXU.
+Separable small-kernel filters are formulated as **banded-matrix
+matmuls** (out = K_rows @ img @ K_cols^T) at HIGHEST precision, exact to
+about 3e-5 on a 0..255 image against a float64 oracle, for ~0.9 GFLOP per
+480x752 image.  Whether a direct stencil or ``lax.conv`` is faster on the
+GPU has not been measured.
 """
 
 from __future__ import annotations
@@ -92,11 +86,8 @@ def _resize_matrix(n_out: int, n_in: int) -> np.ndarray:
 
 
 def resize_bilinear(img: jax.Array, shape: tuple[int, int]) -> jax.Array:
-    """Bilinear (antialiased) resize as two MXU matmuls.
-
-    jax.image.resize lowers to scattered gathers on this TPU runtime
-    (measured ~3.3 ms for the 2x4-level pyramid build vs ~1.7 ms as
-    banded matmuls); out = RY @ img @ RX^T keeps it on the MXU."""
+    """Bilinear (antialiased) resize as two matmuls:
+    out = RY @ img @ RX^T, agreeing with jax.image.resize."""
     H, W = img.shape
     h, w = shape
     if (h, w) == (H, W):

@@ -1,15 +1,13 @@
-"""Line Band Descriptor (LBD), batched, gather-free.
+"""Line Band Descriptor (LBD), batched over segments.
 
 Replaces the vendored BinaryDescriptor (3rdparty/line_descriptor,
 binary_descriptor_custom.cpp:836-848: band-based statistics over a line
 support region, binarized to 256 bits).
 
-TPU formulation: Q patches of (P x P) pixels are extracted at evenly
-spaced centers along each segment with one-hot matmuls (ops/patches.py),
-on a side-by-side stack of the Sobel gradient images so one extraction
-pass serves both gx and gy.  Inside each patch a line-aligned
-(BANDS*BAND_W across) x (S along) rotated grid is sampled via one-hot
-contractions; gradients are rotated into the line frame; each band
+Formulation: Q patches of (P x P) pixels are gathered at evenly spaced
+centers along each segment (ops/patches.py) from both Sobel gradient
+images.  Inside each patch a line-aligned (BANDS*BAND_W across) x
+(S along) rotated grid is sampled; gradients are rotated into the line frame; each band
 contributes mean/std of the 4 half-wave components (positive/negative
 parallel and normal gradients — the classic LBD features) pooled over all
 patches; the float feature vector is binarized by a fixed random-pair
@@ -25,8 +23,7 @@ import jax.numpy as jnp
 
 from .descriptors import pack_bits
 from .image import blur, sobel
-from .patches import (apply_patch_onehots, apply_sample_onehots,
-                      make_patch_onehots, make_sample_onehots)
+from .patches import extract_patches, sample_in_patches
 
 BANDS = 9            # classic LBD: m = 9 bands
 BAND_W = 5           # band width in px (45 across fits the patch radius)
@@ -68,44 +65,10 @@ def describe(img: jax.Array, sp: jax.Array, ep: jax.Array, valid: jax.Array):
     """(K, 8) uint32 packed LBD descriptors for segments (sp, ep)."""
     g = blur(img, 1.4)
     gx, gy = sobel(g)
-    H, W = gx.shape
     K = sp.shape[0]
-
-    # one pair of selection matrices serves BOTH gradient images — the
-    # one-hots are built once, each extraction is one big MXU matmul
     c2 = _patch_centers(sp, ep).reshape(K * Q_PATCHES, 2)
-    OY, OX = make_patch_onehots(c2, PATCH, H, W, center_offset=CENTER)
-    px = apply_patch_onehots(gx, OY, OX)                # (KQ, P, P)
-    py = apply_patch_onehots(gy, OY, OX)
-    return _describe_from_patches(px, py, sp, ep, valid)
-
-
-def describe_batch(imgs: jax.Array, sp: jax.Array, ep: jax.Array,
-                   valid: jax.Array):
-    """Batched LBD on a (B, H, W) stack via the Pallas block-DMA patch
-    gather: gx and gy of all images stack into one (2B, H, W) batch so a
-    single kernel launch serves both gradient fields (bit-identical
-    patches to the one-hot path).  sp/ep/valid carry leading (B,)."""
-    from .pallas_patches import gather_patches_batch
-
-    B, K = sp.shape[0], sp.shape[1]
-    g = jax.vmap(lambda im: blur(im, 1.4))(imgs)
-    gx, gy = jax.vmap(sobel)(g)                         # (B, H, W) each
-    c2 = jax.vmap(_patch_centers)(sp, ep).reshape(B, K * Q_PATCHES, 2)
-    y0 = jnp.floor(c2[..., 1] + 0.5).astype(jnp.int32) - int(CENTER)
-    x0 = jnp.floor(c2[..., 0] + 0.5).astype(jnp.int32) - int(CENTER)
-    pat = gather_patches_batch(
-        jnp.concatenate([gx, gy], axis=0),
-        jnp.concatenate([y0, y0], axis=0),
-        jnp.concatenate([x0, x0], axis=0), PATCH)       # (2B, KQ, P, P)
-    return jax.vmap(_describe_from_patches)(pat[:B], pat[B:], sp, ep, valid)
-
-
-def _describe_from_patches(px: jax.Array, py: jax.Array, sp: jax.Array,
-                           ep: jax.Array, valid: jax.Array):
-    """Descriptor tail shared by the one-hot and block-DMA patch paths;
-    px/py: (K*Q, P, P) gradient patches."""
-    K = sp.shape[0]
+    px = extract_patches(gx, c2, PATCH, center_offset=CENTER)  # (KQ, P, P)
+    py = extract_patches(gy, c2, PATCH, center_offset=CENTER)
     d = ep - sp
     length = jnp.maximum(jnp.linalg.norm(d, axis=-1, keepdims=True), 1e-6)
     dl = d / length                                     # line direction
@@ -126,9 +89,8 @@ def _describe_from_patches(px: jax.Array, py: jax.Array, sp: jax.Array,
     uv = jnp.stack([u, v], -1).reshape(K, A * S_ALONG, 2)
     uv_q = jnp.broadcast_to(uv[:, None], (K, Q_PATCHES, A * S_ALONG, 2)
                             ).reshape(K * Q_PATCHES, A * S_ALONG, 2)
-    OV, OU = make_sample_onehots(uv_q, PATCH)
-    sx = apply_sample_onehots(px, OV, OU).reshape(K, Q_PATCHES, A, S_ALONG)
-    sy = apply_sample_onehots(py, OV, OU).reshape(K, Q_PATCHES, A, S_ALONG)
+    sx = sample_in_patches(px, uv_q).reshape(K, Q_PATCHES, A, S_ALONG)
+    sy = sample_in_patches(py, uv_q).reshape(K, Q_PATCHES, A, S_ALONG)
 
     g_par = (sx * dl[:, None, None, None, 0]
              + sy * dl[:, None, None, None, 1])

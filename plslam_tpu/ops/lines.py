@@ -195,9 +195,9 @@ def _merge_components(sp, ep, d, mass, valid, cfg: LineDetectorConfig) -> Segmen
     A = A | jnp.eye(N, dtype=bool)
     # component root = smallest connected index, via min-label propagation
     # with pointer jumping (O(N^2) masked mins per round).  This replaces a
-    # boolean-matmul transitive closure: int32 NxN matmuls never ride the
-    # MXU, and at N=1024 the closure was ~21 GFLOP/image of emulated
-    # integer arithmetic — two-thirds of the whole line stage's FLOPs.
+    # boolean-matmul transitive closure, which at N=1024 was ~21
+    # GFLOP/image of integer matmuls — two-thirds of the whole line
+    # stage's FLOPs.
     # Each round a node adopts the smallest label among its 1-hop
     # neighbors, then compresses label chains (root <- root[root]); the
     # hybrid converges in O(log N) rounds (worst case covered by a

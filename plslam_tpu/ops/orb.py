@@ -1,18 +1,16 @@
-"""Oriented BRIEF (ORB-style) descriptors, batched, gather-free.
+"""Oriented BRIEF (ORB-style) descriptors, batched over keypoints.
 
 Replaces OpenCV ORB::detectAndCompute's describe stage
-(stereoFrame.cpp:113-116).  TPU-native design: every image access is
-matrix math (see ops/patches.py) —
+(stereoFrame.cpp:113-116) —
 
-- a (K, 48, 48) patch per keypoint is extracted with one-hot matmuls
-  (one large MXU matmul + one batched matmul), replacing both the dense
-  31x31 orientation convolutions and the scattered descriptor gather;
+- a (K, 48, 48) patch per keypoint is gathered from the blurred image
+  (ops/patches.py), replacing both the dense 31x31 orientation
+  convolutions and the per-pair image reads;
 - orientation by intensity centroid is two constant-mask reductions over
   the patch (disc radius 15);
 - steered BRIEF: a fixed 256-pair pattern (deterministic seeded Gaussian
   — descriptors must be internally consistent, not OpenCV bit-compatible)
-  rotated by the keypoint angle and sampled inside the patch with two
-  one-hot contractions;
+  rotated by the keypoint angle and sampled inside the patch;
 - output packed uint32[8] for the popcount-matmul matcher.
 """
 
@@ -63,33 +61,13 @@ def describe(img: jax.Array, xy: jax.Array, valid: jax.Array,
     """
     smoothed = blur(img, blur_sigma)
     patches = extract_patches(smoothed, xy, PATCH,
-                          center_offset=CENTER)    # (K, 48, 48) f32
-    return _describe_from_patches(patches, xy, valid)
-
-
-def describe_batch(imgs: jax.Array, xy: jax.Array, valid: jax.Array,
-                   blur_sigma: float = 2.0):
-    """Batched describe on a (B, H, W) stack via the Pallas block-DMA
-    patch gather (bit-identical patches to the one-hot path; a vmapped
-    pallas_call cannot batch its ANY-space operand, so the batch axis is
-    threaded through the kernel's own grid).  xy: (B, K, 2)."""
-    from .pallas_patches import gather_patches_batch
-
-    smoothed = jax.vmap(lambda im: blur(im, blur_sigma))(imgs)
-    y0 = jnp.floor(xy[..., 1] + 0.5).astype(jnp.int32) - int(CENTER)
-    x0 = jnp.floor(xy[..., 0] + 0.5).astype(jnp.int32) - int(CENTER)
-    patches = gather_patches_batch(smoothed, y0, x0, PATCH)
-    return jax.vmap(_describe_from_patches)(patches, xy, valid)
-
-
-def _describe_from_patches(patches: jax.Array, xy: jax.Array,
-                           valid: jax.Array):
-    """Descriptor tail shared by the one-hot and block-DMA patch paths."""
+                              center_offset=CENTER)    # (K, 48, 48) f32
     # orientation by intensity centroid over the patch disc
     kx = jnp.asarray(_KX, patches.dtype)
     ky = jnp.asarray(_KY, patches.dtype)
-    m10 = jnp.einsum("krc,rc->k", patches, kx)
-    m01 = jnp.einsum("krc,rc->k", patches, ky)
+    hi = jax.lax.Precision.HIGHEST
+    m10 = jnp.einsum("krc,rc->k", patches, kx, precision=hi)
+    m01 = jnp.einsum("krc,rc->k", patches, ky, precision=hi)
     theta = jnp.arctan2(m01, m10)
     norm = jnp.sqrt(m10 * m10 + m01 * m01)
     safe = norm > 1e-6

@@ -1,31 +1,29 @@
-"""Patch extraction and in-patch sampling as one-hot matmuls (MXU path).
+"""Patch extraction and in-patch sampling for the describe stages.
 
-XLA lowers scattered gathers (``img[yi, xi]`` with arbitrary indices) to a
-DMA-per-element loop on TPU — measured ~8-17 ms for the ~600k samples a
-single ORB describe pass needs.  The TPU-native formulation used here turns
-every image sample into matrix math:
+The ORB and LBD descriptors read square patches around image locations
+(stereoFrame.cpp:113-116, binary_descriptor_custom.cpp:836-848) and then
+sample points inside each patch.  Both reads are plain gathers:
 
-- **patch extraction**: ``patch[k] = OY[k] @ img @ OX[k]^T`` where OY/OX are
-  (P, H)/(P, W) one-hot (or two-banded bilinear) selection matrices built
-  with iota compares.  The row contraction collapses to ONE large matmul
-  ``(K*P, H) @ (H, W)`` that tiles perfectly onto the MXU; the column
-  contraction is a batched (P, W) x (W, P) matmul.
-- **in-patch sampling**: arbitrary (possibly per-keypoint-rotated) sample
-  points inside a patch are read with two more one-hot contractions over
-  the tiny patch axes (cost 2*P MACs per sample instead of a scattered
-  DMA).
+- **patch extraction**: each (P, P) patch is one dynamic slice of the
+  zero-padded image, batched over keypoints (contiguous rows, which the
+  GPU serves as ordinary loads);
+- **in-patch sampling**: one gather per sample from the flattened patch.
 
-Out-of-image coordinates produce all-zero one-hot rows, i.e. zero padding.
+Out-of-image coordinates read zero.
 
-Replaces the describe-stage gathers of the reference's OpenCV ORB
-(stereoFrame.cpp:113-116) and LBD (binary_descriptor_custom.cpp:836-848)
-usage with MXU work; detection quality knobs are unchanged.
+The ``*_onehot`` functions are the reference formulation of the same
+reads: one-hot selection matrices built with iota compares and applied as
+matmuls at HIGHEST precision, so every product is an exact copy.  They are
+kept to check the gathers against (tests, chip_smoke.py) and to time the
+two forms (scripts/ab_patch_forms.py); the descriptors do not use them.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _round_half_up(x: jax.Array) -> jax.Array:
@@ -37,137 +35,94 @@ def _round_half_up(x: jax.Array) -> jax.Array:
     return jnp.floor(x + 0.5)
 
 
-def _onehot_nearest(idx: jax.Array, n: int, dtype) -> jax.Array:
-    """One-hot over axis of size n appended at the end; zero row if out of
-    range.  idx: integer array (...,)."""
-    grid = jax.lax.broadcasted_iota(jnp.int32, idx.shape + (n,), idx.ndim)
-    return (grid == idx[..., None]).astype(dtype)
-
-
-def _onehot_bilinear(pos: jax.Array, n: int, dtype) -> jax.Array:
-    """Two-banded bilinear selection matrix over axis n; pos: float (...,).
-    Rows sum to 1 inside the image, to <1 (zero pad) at the border."""
-    p0 = jnp.floor(pos).astype(jnp.int32)
-    f = (pos - p0.astype(pos.dtype)).astype(dtype)
-    grid = jax.lax.broadcasted_iota(jnp.int32, pos.shape + (n,), pos.ndim)
-    w0 = (grid == p0[..., None]).astype(dtype) * (1 - f)[..., None]
-    w1 = (grid == p0[..., None] + 1).astype(dtype) * f[..., None]
-    return w0 + w1
+def patch_corners(xy: jax.Array, patch: int,
+                  center_offset: float | None = None):
+    """(y0, x0) int32 top-left corners: patch[k, r, c] reads
+    img[y0_k + r, x0_k + c], with (x0, y0) = round(xy) - off and
+    off = center_offset (default (P-1)/2)."""
+    off = (patch - 1) / 2.0 if center_offset is None else center_offset
+    o = int(round(off))
+    y0 = _round_half_up(xy[..., 1]).astype(jnp.int32) - o
+    x0 = _round_half_up(xy[..., 0]).astype(jnp.int32) - o
+    return y0, x0
 
 
 def extract_patches(img: jax.Array, xy: jax.Array, patch: int,
-                    center_offset: float | None = None,
-                    bilinear: bool = False,
-                    compute_dtype=jnp.float32) -> jax.Array:
-    """(K, P, P) patches around keypoints xy (float (K, 2), x then y).
-
-    patch[k, r, c] = img[y0_k + r - off, x0_k + c - off] with
-    off = center_offset (default (P-1)/2) and (x0, y0) = floor(xy) for
-    bilinear mode, round(xy) otherwise.  Out-of-image reads are 0.
-
-    The image participates in ``compute_dtype`` (f32 by default: descriptor
-    bits compare blurred intensities whose differences are often below bf16
-    resolution, and bit noise measurably degrades NNR matching); the
-    one-hots are exact in any float dtype.
-    """
+                    center_offset: float | None = None) -> jax.Array:
+    """(K, P, P) f32 patches around keypoints xy (float (K, 2), x then y);
+    see ``patch_corners`` for the anchor.  Out-of-image reads are 0."""
     H, W = img.shape
-    K = xy.shape[0]
     P = patch
-    off = (P - 1) / 2.0 if center_offset is None else center_offset
-    r = jnp.arange(P, dtype=img.dtype)
-    if bilinear:
-        ys = xy[:, 1:2] - off + r[None, :]       # (K, P) float row coords
-        xs = xy[:, 0:1] - off + r[None, :]
-        OY = _onehot_bilinear(ys, H, compute_dtype)   # (K, P, H)
-        OX = _onehot_bilinear(xs, W, compute_dtype)   # (K, P, W)
-    else:
-        y0 = _round_half_up(xy[:, 1]).astype(jnp.int32)
-        x0 = _round_half_up(xy[:, 0]).astype(jnp.int32)
-        ri = jnp.arange(P, dtype=jnp.int32)
-        ys = y0[:, None] + ri[None, :] - int(round(off))
-        xs = x0[:, None] + ri[None, :] - int(round(off))
-        OY = _onehot_nearest(ys, H, compute_dtype)
-        OX = _onehot_nearest(xs, W, compute_dtype)
-    imgc = img.astype(compute_dtype)
-    # one big MXU matmul: (K*P, H) @ (H, W)
-    rows = jax.lax.dot_general(
-        OY.reshape(K * P, H), imgc,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).reshape(K, P, W)
-    # batched (P, W) @ (W, P)
-    patches = jax.lax.dot_general(
-        rows.astype(compute_dtype), OX,
-        dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)
-    return patches  # (K, P, P) f32
+    y0, x0 = patch_corners(xy, P, center_offset)
+    # a P-wide zero border makes every slice whose corner lies in
+    # [-P, H] x [-P, W] exact; corners further out clamp, but every row
+    # or column they would read is outside the image and masked below
+    padded = jnp.pad(img.astype(jnp.float32), P)
+    tiles = jax.vmap(lambda y, x: jax.lax.dynamic_slice(
+        padded, (y + P, x + P), (P, P)))(y0, x0)
+    r = jnp.arange(P, dtype=jnp.int32)
+    ys = y0[:, None] + r[None, :]
+    xs = x0[:, None] + r[None, :]
+    ok_y = (ys >= 0) & (ys < H)
+    ok_x = (xs >= 0) & (xs < W)
+    return jnp.where(ok_y[:, :, None] & ok_x[:, None, :], tiles, 0.0)
 
 
-def sample_in_patches(patches: jax.Array, uv: jax.Array,
-                      compute_dtype=jnp.float32) -> jax.Array:
+def sample_in_patches(patches: jax.Array, uv: jax.Array) -> jax.Array:
     """Sample patches at per-keypoint float coords (nearest).
 
     patches: (K, P, P) [row, col]; uv: (K, S, 2) in-patch (u=col, v=row)
     float coordinates.  Returns (K, S) f32.  Out-of-patch -> 0.
     """
     K, P, _ = patches.shape
-    vi = _round_half_up(uv[..., 1]).astype(jnp.int32)    # rows
-    ui = _round_half_up(uv[..., 0]).astype(jnp.int32)    # cols
-    OV = _onehot_nearest(vi, P, compute_dtype)       # (K, S, P)
-    OU = _onehot_nearest(ui, P, compute_dtype)       # (K, S, P)
-    # A[k, s, c] = sum_r OV[k, s, r] * patch[k, r, c]
-    A = jax.lax.dot_general(
-        OV, patches.astype(compute_dtype),
-        dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)
-    return jnp.sum(A * OU.astype(jnp.float32), axis=-1)
-
-
-def make_patch_onehots(xy: jax.Array, patch: int, H: int, W: int,
-                       center_offset: float | None = None,
-                       compute_dtype=jnp.float32):
-    """(OY (K, P, H), OX (K, P, W)) nearest-corner selection matrices,
-    built once and applied to several images (e.g. gx and gy) so XLA
-    materializes them a single time."""
-    P = patch
-    off = (P - 1) / 2.0 if center_offset is None else center_offset
-    y0 = _round_half_up(xy[:, 1]).astype(jnp.int32)
-    x0 = _round_half_up(xy[:, 0]).astype(jnp.int32)
-    ri = jnp.arange(P, dtype=jnp.int32)
-    ys = y0[:, None] + ri[None, :] - int(round(off))
-    xs = x0[:, None] + ri[None, :] - int(round(off))
-    return (_onehot_nearest(ys, H, compute_dtype),
-            _onehot_nearest(xs, W, compute_dtype))
-
-
-def apply_patch_onehots(img: jax.Array, OY: jax.Array, OX: jax.Array,
-                        compute_dtype=jnp.float32) -> jax.Array:
-    """(K, P, P) patches from precomputed selection matrices."""
-    K, P, H = OY.shape
-    W = OX.shape[-1]
-    rows = jax.lax.dot_general(
-        OY.reshape(K * P, H), img.astype(compute_dtype),
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).reshape(K, P, W)
-    return jax.lax.dot_general(
-        rows.astype(compute_dtype), OX,
-        dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)
-
-
-def make_sample_onehots(uv: jax.Array, patch: int,
-                        compute_dtype=jnp.float32):
-    """(OV (K, S, P), OU (K, S, P)) nearest one-hots for in-patch coords."""
     vi = _round_half_up(uv[..., 1]).astype(jnp.int32)
     ui = _round_half_up(uv[..., 0]).astype(jnp.int32)
-    return (_onehot_nearest(vi, patch, compute_dtype),
-            _onehot_nearest(ui, patch, compute_dtype))
+    ok = (vi >= 0) & (vi < P) & (ui >= 0) & (ui < P)
+    flat = jnp.clip(vi, 0, P - 1) * P + jnp.clip(ui, 0, P - 1)
+    vals = jnp.take_along_axis(
+        patches.reshape(K, P * P).astype(jnp.float32), flat, axis=1)
+    return jnp.where(ok, vals, 0.0)
 
 
-def apply_sample_onehots(patches: jax.Array, OV: jax.Array,
-                         OU: jax.Array) -> jax.Array:
-    """(K, S) samples from precomputed in-patch one-hots."""
-    A = jax.lax.dot_general(
-        OV, patches.astype(OV.dtype),
-        dimension_numbers=(((2,), (1,)), ((0,), (0,))),
+# ---------------------------------------------------------------------------
+# Reference: the same reads as exact one-hot matmuls
+# ---------------------------------------------------------------------------
+
+
+def _onehot(idx: jax.Array, n: int) -> jax.Array:
+    """f32 one-hot over a new trailing axis of size n; a zero row where idx
+    is out of range."""
+    grid = jax.lax.broadcasted_iota(jnp.int32, idx.shape + (n,), idx.ndim)
+    return (grid == idx[..., None]).astype(jnp.float32)
+
+
+def extract_patches_onehot(img: jax.Array, xy: jax.Array, patch: int,
+                           center_offset: float | None = None) -> jax.Array:
+    """Reference for ``extract_patches``:
+    patch[k] = OY[k] @ img @ OX[k]^T with (P, H) / (P, W) one-hots."""
+    H, W = img.shape
+    K = xy.shape[0]
+    P = patch
+    y0, x0 = patch_corners(xy, P, center_offset)
+    r = jnp.arange(P, dtype=jnp.int32)
+    OY = _onehot(y0[:, None] + r[None, :], H)        # (K, P, H)
+    OX = _onehot(x0[:, None] + r[None, :], W)        # (K, P, W)
+    rows = jax.lax.dot_general(
+        OY.reshape(K * P, H), img.astype(jnp.float32),
+        (((1,), (0,)), ((), ())), precision=_HI,
+        preferred_element_type=jnp.float32).reshape(K, P, W)
+    return jax.lax.dot_general(
+        rows, OX, (((2,), (2,)), ((0,), (0,))), precision=_HI,
         preferred_element_type=jnp.float32)
-    return jnp.sum(A * OU.astype(jnp.float32), axis=-1)
+
+
+def sample_in_patches_onehot(patches: jax.Array, uv: jax.Array) -> jax.Array:
+    """Reference for ``sample_in_patches``: two one-hot contractions over
+    the patch axes."""
+    K, P, _ = patches.shape
+    OV = _onehot(_round_half_up(uv[..., 1]).astype(jnp.int32), P)
+    OU = _onehot(_round_half_up(uv[..., 0]).astype(jnp.int32), P)
+    A = jax.lax.dot_general(
+        OV, patches.astype(jnp.float32), (((2,), (1,)), ((0,), (0,))),
+        precision=_HI, preferred_element_type=jnp.float32)
+    return jnp.sum(A * OU, axis=-1)

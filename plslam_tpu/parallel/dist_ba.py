@@ -4,7 +4,7 @@ The reference has no distributed story (threads only, SURVEY.md §2.4); this
 is the scaling design mandated by BASELINE.json: landmarks and their
 observations are sharded across devices along the "lm" mesh axis, each
 device assembles its partial camera-Hessian and Schur-correction blocks,
-and the small reduced camera system is combined with ``psum`` over ICI and
+and the small reduced camera system is combined with ``psum`` and
 solved replicated; landmark back-substitution stays local to each shard.
 
 Implementation: ``shard_map`` over a 1-axis mesh.  The per-shard math
@@ -43,7 +43,7 @@ def _local_assemble(prob: ba_mod.BAProblem, cam: StereoCamera,
     Hll_inv, _ = ba_mod._damped_inv(a.Hll, lam, prob.line_valid, 4,
                                     cfg.tikhonov)
 
-    # precision HIGHEST: bf16 matmul passes wreck Hessian-level accuracy
+    # precision HIGHEST: reduced-precision matmul passes wreck Hessian-level accuracy
     # (see ba.schur_partials)
     hi = jax.lax.Precision.HIGHEST
     S_partial = jnp.zeros((K, K, 6, 6), dtype)
@@ -58,20 +58,16 @@ def _local_assemble(prob: ba_mod.BAProblem, cam: StereoCamera,
     return a, Hpp_inv, Hll_inv, S_partial, rhs_partial
 
 
-def _dist_lm_iteration(prob, cam, cfg, lam, p_active, l_active,
-                       axes=AXIS):
-    """One distributed LM iteration (runs under shard_map).  ``axes`` is
-    the mesh axis (or axis tuple, e.g. ("dcn", "ici") for the multi-host
-    layout of parallel/multihost.py) the reduced system is psum'd over."""
+def _dist_lm_iteration(prob, cam, cfg, lam, p_active, l_active):
+    """One distributed LM iteration (runs under shard_map); the reduced
+    system is psum'd over the landmark axis."""
     a, Hpp_inv, Hll_inv, S_partial, rhs_partial = _local_assemble(
         prob, cam, cfg, lam, p_active, l_active)
-    # combine partial camera blocks across shards (the ICI reduction; on a
-    # 2-axis mesh XLA lowers the multi-axis psum hierarchically — ICI
-    # within a host first, DCN across hosts on the reduced data), then the
-    # SAME damped/refined reduced solve as the single-device path
-    Hcc = jax.lax.psum(a.Hcc, axes)
-    S_off = jax.lax.psum(S_partial, axes)
-    rhs = jax.lax.psum(rhs_partial, axes)
+    # combine partial camera blocks across shards, then the SAME
+    # damped/refined reduced solve as the single-device path
+    Hcc = jax.lax.psum(a.Hcc, AXIS)
+    S_off = jax.lax.psum(S_partial, AXIS)
+    rhs = jax.lax.psum(rhs_partial, AXIS)
     free = prob.pose_valid & ~prob.pose_fixed
     dpose = ba_mod.solve_reduced(Hcc, S_off, rhs, lam, free)
 
@@ -84,7 +80,7 @@ def _dist_lm_iteration(prob, cam, cfg, lam, p_active, l_active,
     return dpose, dpoint, dline
 
 
-def _dist_cost(prob, cam, cfg, p_active, l_active, axes=AXIS):
+def _dist_cost(prob, cam, cfg, p_active, l_active):
     """Cauchy cost, matching assemble()'s IRLS weights (the LM
     accept/reject test must use the same objective the step minimized)."""
     e_p, _, _ = ba_mod.point_obs_residuals(prob, cam)
@@ -93,43 +89,41 @@ def _dist_cost(prob, cam, cfg, p_active, l_active, axes=AXIS):
                           ba_mod.cauchy_cost(e_p) * prob.p_sigma2, 0.0))
     c = c + jnp.sum(jnp.where(l_active,
                               ba_mod.cauchy_cost(e_l) * prob.l_sigma2, 0.0))
-    return jax.lax.psum(c, axes)
+    return jax.lax.psum(c, AXIS)
 
 
 _POSE_FIELDS = ("T_c_w", "pose_fixed", "pose_valid")
 
 
-def problem_specs(axes=AXIS, endpoint_lines: bool = False) -> ba_mod.BAProblem:
+def problem_specs(axis: str = AXIS,
+                  endpoint_lines: bool = False) -> ba_mod.BAProblem:
     """Per-leaf PartitionSpecs: pose leaves replicated, every landmark/obs
-    leaf sharded along ``axes`` (an axis name or tuple for multi-axis
-    meshes).  ``endpoint_lines`` must mirror the problem's layout: the
+    leaf sharded along ``axis``.  ``endpoint_lines`` must mirror the problem's layout: the
     optional p_lo/p_is_line leaves exist only in endpoint mode and must be
     None (not a spec leaf) otherwise, or tree mapping over (problem,
     specs) fails with a structure mismatch."""
     none_fields = () if endpoint_lines else ("p_lo", "p_is_line")
     return ba_mod.BAProblem(**{
         f: (None if f in none_fields else
-            (P() if f in _POSE_FIELDS else P(axes)))
+            (P() if f in _POSE_FIELDS else P(axis)))
         for f in ba_mod.BAProblem._fields})
 
 
 def make_dist_bundle_adjust(mesh: Mesh, cam: StereoCamera,
                             cfg: ba_mod.BAConfig, iters: int = 10,
-                            axes=AXIS, endpoint_lines: bool = False):
+                            endpoint_lines: bool = False):
     """Build the jitted shard_map BA step for a given mesh.
 
     The returned function takes a BAProblem whose landmark/observation
     arrays are sharded along their leading axis (use
     ``shard_problem(mesh, prob)``) and runs ``iters`` accepted/rejected LM
-    iterations of the distributed Schur solve.  ``axes`` names the mesh
-    axis — or axis tuple, for the 2-axis (host x device) multi-host mesh
-    of parallel/multihost.py — the landmark dimension is sharded over;
-    ``endpoint_lines`` selects the endpoint-parameterized problem layout
+    iterations of the distributed Schur solve over a mesh with the "lm"
+    axis (``parallel.mesh.make_mesh``); ``endpoint_lines`` selects the endpoint-parameterized problem layout
     (p_lo/p_is_line present).
     """
 
     # replicated leaves: poses + validity; sharded leaves: landmarks + obs
-    pspec = problem_specs(axes, endpoint_lines)
+    pspec = problem_specs(AXIS, endpoint_lines)
 
     @functools.partial(
         jax.shard_map, mesh=mesh, in_specs=(pspec,),
@@ -139,18 +133,18 @@ def make_dist_bundle_adjust(mesh: Mesh, cam: StereoCamera,
         p_active = prob.p_valid
         l_active = prob.l_valid
         lam0 = jnp.asarray(cfg.lambda_init, prob.points.dtype)
-        cost0 = _dist_cost(prob, cam, cfg, p_active, l_active, axes)
+        cost0 = _dist_cost(prob, cam, cfg, p_active, l_active)
 
         def body(carry, _):
             prob, lam, cost = carry
             dpose, dpoint, dline = _dist_lm_iteration(
-                prob, cam, cfg, lam, p_active, l_active, axes)
+                prob, cam, cfg, lam, p_active, l_active)
             T_new = jax.vmap(lambda d, T: lie.exp_se3(-d) @ T)(dpose, prob.T_c_w)
             cand = prob._replace(
                 T_c_w=T_new,
                 points=prob.points - dpoint,
                 lines_orth=jax.vmap(orth_plus)(prob.lines_orth, -dline))
-            new_cost = _dist_cost(cand, cam, cfg, p_active, l_active, axes)
+            new_cost = _dist_cost(cand, cam, cfg, p_active, l_active)
             ok = (new_cost < cost) & jnp.isfinite(new_cost)
             prob = jax.tree.map(
                 lambda new, old: jnp.where(
@@ -167,13 +161,12 @@ def make_dist_bundle_adjust(mesh: Mesh, cam: StereoCamera,
     return jax.jit(run)
 
 
-def shard_problem(mesh: Mesh, prob: ba_mod.BAProblem,
-                  axes=AXIS) -> ba_mod.BAProblem:
+def shard_problem(mesh: Mesh, prob: ba_mod.BAProblem) -> ba_mod.BAProblem:
     """Device_put each leaf with its distributed sharding (the endpoint
     layout is inferred from the problem).  Landmark slot indices
     (p_lm / l_lm) must already be *shard-local* (host assembly groups
     observations by landmark shard)."""
-    specs = problem_specs(axes, endpoint_lines=prob.p_lo is not None)
+    specs = problem_specs(AXIS, endpoint_lines=prob.p_lo is not None)
 
     def put(x, spec):
         return jax.device_put(x, NamedSharding(mesh, spec))

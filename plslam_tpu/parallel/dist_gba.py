@@ -16,7 +16,7 @@ runs on the psum'd global cost.  The distributed solve is therefore
 algebraically identical to ``MapHandler.global_bundle_adjustment`` — no
 consensus rounds, no block-Gauss-Seidel approximation — while wall-clock
 scales with the largest shard and the only collectives are one
-(K,K,6,6)+(K,6) psum per LM iteration over ICI.
+(K,K,6,6)+(K,6) psum per LM iteration.
 
 Both line parameterizations: Pluecker lines are 4-DoF orth rows of the
 chunk's line table; endpoint lines (the reference's GBA
@@ -165,30 +165,29 @@ def partition_map(mapper, n_blocks: int) -> BlockedGBA:
         plucker=plucker)
 
 
-def _problem_specs(endpoint_lines: bool, axes=AXIS) -> ba_mod.BAProblem:
+def _problem_specs(endpoint_lines: bool, axis: str = AXIS) -> ba_mod.BAProblem:
     """Per-leaf PartitionSpecs (pose leaves replicated, chunk leaves
     sharded) — one definition shared with the landmark-sharded BA."""
     from .dist_ba import problem_specs
 
-    return problem_specs(axes, endpoint_lines)
+    return problem_specs(axis, endpoint_lines)
 
 
 def make_kf_block_gba(mesh: Mesh, cam: StereoCamera,
                       cfg: ba_mod.BAConfig,
-                      endpoint_lines: bool = False, axes=AXIS):
+                      endpoint_lines: bool = False, axis: str = AXIS):
     """Jitted shard_map program: the chunked two-round Schur GBA
     (backend/ba.py bundle_adjust_chunked) with its chunk axis sharded over
-    the mesh and the reduced camera system / LM costs psum-combined —
-    algebraically identical to the single-chip solve.  ``axes``: mesh axis
-    name or tuple (multi-host: ("dcn", "ici"), parallel/multihost.py)."""
-    pspec = _problem_specs(endpoint_lines, axes)
+    the mesh axis ``axis`` and the reduced camera system / LM costs
+    psum-combined — algebraically identical to the single-chip solve."""
+    pspec = _problem_specs(endpoint_lines, axis)
 
     @functools.partial(
         jax.shard_map, mesh=mesh, in_specs=(pspec,),
-        out_specs=(P(), P(axes), P(axes), P(axes), P(axes), P(axes)),
+        out_specs=(P(), P(axis), P(axis), P(axis), P(axis), P(axis)),
         check_vma=False)
     def run(prob: ba_mod.BAProblem):
-        res = ba_mod.bundle_adjust_chunked(prob, cam, cfg, axis_name=axes)
+        res = ba_mod.bundle_adjust_chunked(prob, cam, cfg, axis_name=axis)
         return (res.problem.T_c_w, res.problem.points,
                 res.problem.lines_orth, res.problem.lines_scale,
                 res.p_active, res.l_active)
@@ -197,31 +196,28 @@ def make_kf_block_gba(mesh: Mesh, cam: StereoCamera,
 
 
 def distributed_global_bundle_adjustment(mapper, mesh: Mesh,
-                                         rounds: int = 2, axes=None):
+                                         rounds: int = 2):
     """Run the kf-block sharded GBA on a mesh and write results back into
     the map (poses, points, lines) — same write-back path as the
     single-chip ``global_bundle_adjustment`` (including chi^2-gated
     observation pruning).  ``rounds`` is accepted for API compatibility
     but unused: the sharded solve is exact, not an iterated consensus.
-    ``axes`` defaults to all of the mesh's axis names (so a 2-axis
-    host x device mesh shards chunks over both and psums hierarchically).
+    ``mesh`` is one-dimensional; chunks shard over its axis.
 
     Locking matches the @_locked single-chip path: any deferred local-BA
     result is applied FIRST (or its stale write-back would later land on
     top of the GBA correction), and the partition + write-back hold the
     mapper's map lock against the mapping/loop-closure workers."""
     del rounds
-    if axes is None:
-        axes = (mesh.axis_names[0] if len(mesh.axis_names) == 1
-                else tuple(mesh.axis_names))
+    (axis,) = mesh.axis_names
     n_blocks = mesh.devices.size
     mapper.flush_ba()
     with mapper._map_lock:
         blk = partition_map(mapper, n_blocks)
         run = make_kf_block_gba(mesh, mapper.cam, mapper.ba_cfg,
-                                endpoint_lines=not blk.plucker, axes=axes)
+                                endpoint_lines=not blk.plucker, axis=axis)
 
-        specs = _problem_specs(not blk.plucker, axes)
+        specs = _problem_specs(not blk.plucker, axis)
 
         def put(x, spec):
             return jax.device_put(jnp.asarray(x), NamedSharding(mesh, spec))

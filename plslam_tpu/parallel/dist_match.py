@@ -21,6 +21,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..backend import pgo as pgo_mod
 from ..core import linalg
+from ..core.numerics import full_f32_matmuls
 from ..ops.descriptors import hamming_distance_matrix
 from ..ops.matching import BIG
 
@@ -108,7 +109,9 @@ def make_dist_pgo(mesh: Mesh, iters: int = 10, damping: float = 1e-6):
         g, _ = jax.lax.scan(body, g, None, length=iters)
         return g
 
-    return jax.jit(run)
+    # full f32 matmuls, like pgo.optimize: the edge Hessian blocks feed
+    # the solve
+    return jax.jit(full_f32_matmuls(run))
 
 
 def shard_posegraph(mesh: Mesh, g: pgo_mod.PoseGraph) -> pgo_mod.PoseGraph:

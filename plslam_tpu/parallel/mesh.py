@@ -15,19 +15,17 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "lm") -> Mesh:
-    """Mesh over the backend that actually has enough devices: prefers the
-    default backend, falls back to the forced-multi-device CPU platform
-    (for the 8-virtual-device sharding tests)."""
+    """1-D mesh over the first ``n_devices`` devices of the default
+    backend (all of them by default).  Raises when the backend has fewer:
+    a mesh never moves to another backend behind the caller's back.
+    (Tests get 8 devices from JAX_PLATFORMS=cpu with a forced host
+    device count.)"""
     devs = jax.devices()
     n = n_devices or len(devs)
     if len(devs) < n:
-        try:
-            cpus = jax.local_devices(backend="cpu")
-            if len(cpus) >= n:
-                devs = cpus
-        except RuntimeError:
-            pass
-    assert len(devs) >= n, f"need {n} devices, have {len(devs)}"
+        raise ValueError(
+            f"make_mesh: need {n} devices, the default backend "
+            f"({devs[0].platform}) has {len(devs)}")
     return Mesh(np.asarray(devs[:n]), (axis,))
 
 

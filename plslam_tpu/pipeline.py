@@ -218,9 +218,8 @@ class PLSLAM:
     @staticmethod
     @jax.jit
     def _pack_frame_scalars(res):
-        """One (21,) f32 fetch for everything the host needs per frame —
-        five separate scalar fetches cost ~10-30 ms EACH on the remote
-        runtime and dominated the non-KF frame time."""
+        """One (21,) f32 fetch for everything the host needs per frame:
+        one device round trip instead of five scalar fetches."""
         return jnp.concatenate([
             jnp.stack([res.is_kf.astype(jnp.float32),
                        res.n_inliers.astype(jnp.float32),

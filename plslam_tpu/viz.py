@@ -2,7 +2,7 @@
 
 The reference renders a live MRPT 3D window (src/slamScene.cpp:
 trajectory, keyframes, point/line landmarks, covisibility graph;
-src2/sceneRepresentation.cpp for pure VO).  A TPU batch pipeline has no
+src2/sceneRepresentation.cpp for pure VO).  A batch pipeline has no
 interactive window; this module renders the same artifacts to image files
 with matplotlib (Agg), after or during a run:
 

@@ -2,7 +2,7 @@
 
 The reference renders a live MRPT OpenGL window with the trajectory,
 keyframes, point/line landmarks and the covisibility graph
-(src/slamScene.cpp:1062, src2/sceneRepresentation.cpp:1066).  A TPU batch
+(src/slamScene.cpp:1062, src2/sceneRepresentation.cpp:1066).  A batch
 runtime has no display; the equivalent artifact here is a **self-contained
 interactive HTML file**: the map state is embedded as JSON and rendered by
 a small WebGL viewer (orbit / pan / zoom, layer toggles, KF frusta) with

@@ -1,12 +1,12 @@
 """BASELINE config-5 demonstration: kf-block sharded global BA on a LONG
-concatenated trajectory, on the virtual 8-device mesh (1-axis) and the
-2x4 multi-host (dcn x ici) mesh, vs the single-chip chunked GBA.
+concatenated trajectory, on the virtual 8-device mesh, vs the
+single-device chunked GBA.
 
 Reports error-to-truth agreement (the sharded solve is exact) and the
 per-device chunk counts — the scaling story is chunks-per-device: the
 single chip sweeps every chunk sequentially, the mesh spreads them, so
 device wall scales with ceil(chunks / n_devices).  (CPU-mesh wall times
-are not TPU-representative; agreement and work division are.)
+say nothing about an accelerator; agreement and work division do.)
 
 Run: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      python scripts/bench_dist_gba.py [N_KF]
@@ -21,25 +21,18 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 
-import jax
+from plslam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                 "/tmp/jax_cache"))
-try:
-    jax.config.update("jax_default_device",
-                      jax.local_devices(backend="cpu")[0])
-except RuntimeError:
-    pass
+enable_compile_cache()
 
 import numpy as np
 
 import __graft_entry__ as G
-from plslam_tpu.parallel import dist_gba, multihost
+from plslam_tpu.parallel import dist_gba
 from plslam_tpu.parallel.mesh import make_mesh
 
 N_KF = int(sys.argv[1]) if len(sys.argv) > 1 else 128
-ONLY = sys.argv[2] if len(sys.argv) > 2 else None  # single|mesh8|mesh2x4
+ONLY = sys.argv[2] if len(sys.argv) > 2 else None  # single|mesh8
 N_PTS = N_KF * 128
 N_LS = N_KF * 8
 
@@ -89,20 +82,6 @@ def main():
             "pt_err": round(pt_err(mapper, pt_true), 5),
             "chunks": len(blk.metas),
             "chunks_per_device": -(-len(blk.metas) // 8),
-            "peak_rss_gb": _peak_rss_gb()}
-
-    if want("mesh2x4"):
-        # 2x4 multi-host (dcn x ici) mesh
-        mapper, (T_true, pt_true) = build()
-        if pre is None:
-            pre = pt_err(mapper, pt_true)
-        mesh2 = multihost.make_multihost_mesh(2, 4)
-        t0 = time.time()
-        blk = multihost.distributed_gba_2d(mapper, mesh2)
-        results["mesh2x4"] = {
-            "wall_s": round(time.time() - t0, 1),
-            "pt_err": round(pt_err(mapper, pt_true), 5),
-            "chunks": len(blk.metas),
             "peak_rss_gb": _peak_rss_gb()}
 
     print(json.dumps({"n_kf": N_KF, "n_pts": N_PTS, "n_ls": N_LS,

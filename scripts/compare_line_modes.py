@@ -9,7 +9,7 @@ synthetic sequence and prints the aligned ATE RMSE of each — the
 quantitative version of that comparison (no EuRoC imagery exists in this
 environment; BASELINE.md records the numbers).
 
-Run: JAX_PLATFORMS=cpu python scripts/compare_line_modes.py  (or on TPU)
+Run: JAX_PLATFORMS=cpu python scripts/compare_line_modes.py  (or on the GPU)
 """
 
 import sys
@@ -18,7 +18,9 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from plslam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

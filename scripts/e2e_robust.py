@@ -7,7 +7,7 @@ Reports per-mode tracked frames, KF count, and Umeyama-aligned ATE RMSE,
 and dumps TUM trajectories (the EuRoC-protocol stand-in while no real
 image data exists in this environment; VERDICT r3 next-round #6).
 
-Run: python scripts/e2e_robust.py [N_FRAMES]   (TPU or CPU)
+Run: python scripts/e2e_robust.py [N_FRAMES]   (GPU or CPU)
 """
 
 import json
@@ -19,9 +19,9 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                 "/tmp/jax_cache"))
+from plslam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
@@ -61,7 +61,9 @@ def run_mode(plucker: bool, frames, poses, cam):
     gt = np.stack([poses[i][:3, 3] for i in idx])
     ate = ate_rmse(est, gt)
     mode = "plucker" if plucker else "endpoint"
-    save_tum(f"/tmp/e2e_robust_{mode}.tum", ts, [k.T_w_k for k in kfs])
+    os.makedirs("e2e_robust_out", exist_ok=True)
+    save_tum(os.path.join("e2e_robust_out", f"{mode}.tum"), ts,
+             [k.T_w_k for k in kfs])
     good = sum(1 for lg in slam.logs if lg.good)
     out = {
         "mode": mode, "frames": len(frames), "good_frames": good,

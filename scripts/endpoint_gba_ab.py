@@ -36,12 +36,9 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-try:
-    jax.config.update("jax_default_device",
-                      jax.local_devices(backend="cpu")[0])
-except RuntimeError:
-    pass
+from plslam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

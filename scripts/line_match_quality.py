@@ -22,7 +22,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from plslam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from plslam_tpu.frontend.frame import FrontendConfig, _detect_describe_lines
 from plslam_tpu.io.synthetic import SyntheticScene, circular_trajectory

@@ -21,6 +21,10 @@ Ground truth: per sequence, the first existing of
 --mini SMOKE mode: generates the miniature on-disk fixture
 (scripts/make_mini_euroc.py) and runs all four configs against it —
 exercises the identical code path end to end without real data.
+
+This parent process never imports JAX: each configuration runs in a child
+process, one after another, so only one process holds the device at a
+time.
 """
 
 import argparse
@@ -123,7 +127,6 @@ def main():
     args = ap.parse_args()
 
     env = dict(os.environ)
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 
     tmp = tempfile.mkdtemp(prefix="baseline_suite_")
     if args.mini:

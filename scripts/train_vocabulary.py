@@ -24,9 +24,9 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                 "/tmp/jax_cache"))
+from plslam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

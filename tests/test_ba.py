@@ -9,88 +9,18 @@ import numpy as np
 from plslam_tpu.core import lie
 from plslam_tpu.core.camera import StereoCamera
 from plslam_tpu.core.plucker import (
-    plucker_from_two_points,
-    plucker_to_orth,
     orth_to_plucker,
 )
 from plslam_tpu.backend import ba
+from plslam_tpu.io.synthetic import ba_problem
 
 RNG = np.random.default_rng(11)
 CAM = StereoCamera.create(435.2, 435.2, 367.4, 252.2, 0.110074, dtype=jnp.float64)
 CFG = ba.BAConfig()
 
 
-@jax.jit
-def _build(poses_xi, Pw, LA, LB, pert_xi, pert_P, pert_orth, noise_uv, noise_s, noise_e):
-    K = poses_xi.shape[0]
-    P = Pw.shape[0]
-    L = LA.shape[0]
-    dtype = Pw.dtype
-    T_w_c = jax.vmap(lie.exp_se3)(poses_xi)         # camera->world
-    T_c_w = jax.vmap(lie.inv_se3)(T_w_c)
-
-    # observations: every camera sees every landmark
-    cam_idx_p = jnp.repeat(jnp.arange(K, dtype=jnp.int32), P)
-    lm_idx_p = jnp.tile(jnp.arange(P, dtype=jnp.int32), K)
-    Pc = jax.vmap(lie.transform_point)(T_c_w[cam_idx_p], Pw[lm_idx_p])
-    uv = CAM.project(Pc) + noise_uv
-
-    cam_idx_l = jnp.repeat(jnp.arange(K, dtype=jnp.int32), L)
-    lm_idx_l = jnp.tile(jnp.arange(L, dtype=jnp.int32), K)
-    sA = CAM.project(jax.vmap(lie.transform_point)(T_c_w[cam_idx_l], LA[lm_idx_l])) + noise_s
-    eB = CAM.project(jax.vmap(lie.transform_point)(T_c_w[cam_idx_l], LB[lm_idx_l])) + noise_e
-
-    Lw = plucker_from_two_points(LA, LB)
-    scale = jnp.linalg.norm(Lw, axis=-1)
-    orth = plucker_to_orth(Lw / scale[:, None])
-
-    # perturb initial state (keep pose 0 fixed as gauge)
-    T_c_w_init = jax.vmap(lambda d, T: lie.exp_se3(d) @ T)(pert_xi, T_c_w)
-    points_init = Pw + pert_P
-    orth_init = jax.vmap(lambda o, d: o + d)(orth, pert_orth)
-
-    prob = ba.BAProblem(
-        T_c_w=T_c_w_init,
-        pose_fixed=jnp.arange(K) == 0,
-        pose_valid=jnp.ones(K, bool),
-        points=points_init,
-        point_valid=jnp.ones(P, bool),
-        lines_orth=orth_init,
-        lines_scale=scale,
-        line_valid=jnp.ones(L, bool),
-        p_cam=cam_idx_p, p_lm=lm_idx_p, p_uv=uv,
-        p_sigma2=jnp.ones(K * P, dtype), p_valid=jnp.ones(K * P, bool),
-        l_cam=cam_idx_l, l_lm=lm_idx_l, l_sobs=sA, l_eobs=eB,
-        l_sigma2=jnp.ones(K * L, dtype), l_valid=jnp.ones(K * L, bool),
-    )
-    return prob, T_c_w, Pw, Lw
-
-
-def make_problem(K=5, P=30, L=12, noise=0.0, pert=0.02, seed=11):
-    RNG = np.random.default_rng(seed)
-    dtype = jnp.float64
-    poses_xi = jnp.asarray(
-        np.concatenate(
-            [RNG.uniform(-0.5, 0.5, (K, 2)), RNG.uniform(-0.1, 0.1, (K, 1)),
-             RNG.uniform(-0.05, 0.05, (K, 3))], axis=1), dtype)
-    Pw = jnp.asarray(np.stack(
-        [RNG.uniform(-3, 3, P), RNG.uniform(-2, 2, P), RNG.uniform(4, 10, P)],
-        axis=-1), dtype)
-    LA = jnp.asarray(np.stack(
-        [RNG.uniform(-3, 3, L), RNG.uniform(-2, 2, L), RNG.uniform(4, 10, L)],
-        axis=-1), dtype)
-    LB = LA + jnp.asarray(np.stack(
-        [RNG.uniform(-1.5, 1.5, L), RNG.uniform(-1.5, 1.5, L),
-         RNG.uniform(-0.5, 0.5, L)], axis=-1), dtype)
-    pert_xi = jnp.asarray(RNG.normal(size=(K, 6)) * pert, dtype)
-    pert_xi = pert_xi.at[0].set(0.0)
-    pert_P = jnp.asarray(RNG.normal(size=(P, 3)) * pert, dtype)
-    pert_orth = jnp.asarray(RNG.normal(size=(L, 4)) * pert * 0.5, dtype)
-    noise_uv = jnp.asarray(RNG.normal(size=(K * P, 2)) * noise, dtype)
-    noise_s = jnp.asarray(RNG.normal(size=(K * L, 2)) * noise, dtype)
-    noise_e = jnp.asarray(RNG.normal(size=(K * L, 2)) * noise, dtype)
-    return _build(poses_xi, Pw, LA, LB, pert_xi, pert_P, pert_orth,
-                  noise_uv, noise_s, noise_e)
+def make_problem(**kw):
+    return ba_problem(CAM, **kw)
 
 
 def test_point_obs_jacobians_vs_autodiff():

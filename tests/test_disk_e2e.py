@@ -55,8 +55,7 @@ def test_disk_to_ate_full_path(tmp_path):
     # match the conftest's XLA flags: the persistent compile cache keys
     # include them, and the pipeline programs are expensive on CPU
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               JAX_COMPILATION_CACHE_DIR="/tmp/jax_cache")
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "run_euroc.py"),
          info["dir"], "--params", info["params"],

@@ -16,6 +16,9 @@ from plslam_tpu.io.trajectory import (
 )
 
 REF_GT = "/root/reference/config/asl/gt-ass/mh_01/groundtruth.txt"
+# value-compatible mirrors of the reference's config YAMLs
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs")
 
 
 @pytest.mark.skipif(not os.path.exists(REF_GT), reason="reference data absent")
@@ -74,15 +77,15 @@ def test_associate_timestamps():
 
 
 def test_kitti_params_and_layout(tmp_path):
-    """The reference's KITTI parameter files (fx/fy scalar calibration form,
-    image_2/image_3 subfolders) load and read."""
+    """The KITTI parameter files (fx/fy scalar calibration form,
+    image_2/image_3 subfolders; configs/ mirrors the reference's) load and
+    read."""
     import cv2
     import numpy as np
 
     from plslam_tpu.io.euroc import StereoDirDataset, load_euroc_calib
 
-    calib = load_euroc_calib(
-        "/root/reference/config/dataset_params/kitti00-02.yaml")
+    calib = load_euroc_calib(os.path.join(CONFIGS, "kitti00-02.yaml"))
     assert abs(calib.fx - 718.856) < 1e-3
     assert abs(calib.baseline - 0.537165719) < 1e-6
     assert calib.width == 1241 and calib.height == 376
@@ -103,14 +106,14 @@ def test_kitti_params_and_layout(tmp_path):
 
 
 def test_reference_run_configs_load():
-    """Every run-config YAML the reference ships loads into PLSLAMConfig
-    with its keys applied (config/config/*.yaml; loadSafe semantics:
-    unknown keys ignored, missing keys keep defaults)."""
+    """Every run-config YAML the reference ships (mirrored in configs/
+    config*.yaml) loads into PLSLAMConfig with its keys applied (loadSafe
+    semantics: unknown keys ignored, missing keys keep defaults)."""
     import glob
 
     from plslam_tpu.config import PLSLAMConfig
 
-    paths = sorted(glob.glob("/root/reference/config/config/*.yaml"))
+    paths = sorted(glob.glob(os.path.join(CONFIGS, "config*.yaml")))
     assert len(paths) >= 6
     for p in paths:
         cfg = PLSLAMConfig.from_yaml(p)
@@ -121,21 +124,21 @@ def test_reference_run_configs_load():
     # spot-check a known value from config_euroc.yaml against the file
     import yaml as _y
 
-    with open("/root/reference/config/config/config_euroc.yaml") as f:
+    euroc = os.path.join(CONFIGS, "config_euroc.yaml")
+    with open(euroc) as f:
         raw = _y.safe_load(f)
-    cfg = PLSLAMConfig.from_yaml(
-        "/root/reference/config/config/config_euroc.yaml")
+    cfg = PLSLAMConfig.from_yaml(euroc)
     assert cfg.orb_nfeatures == raw["orb_nfeatures"]
     assert cfg.min_ratio_12_p == raw["min_ratio_12_p"]
 
 
 def test_reference_euroc_camera_params_load():
-    """The reference's EuRoC camera YAML builds a camera + rectification
-    maps (pinholeStereoCamera.cpp:30-129 both calib forms)."""
+    """The EuRoC camera YAML (configs/ mirror of the reference's) builds a
+    camera + rectification maps (pinholeStereoCamera.cpp:30-129 both calib
+    forms)."""
     from plslam_tpu.io.euroc import load_euroc_calib
 
-    calib = load_euroc_calib(
-        "/root/reference/config/dataset_params/euroc_params.yaml")
+    calib = load_euroc_calib(os.path.join(CONFIGS, "euroc_params.yaml"))
     assert calib.fx > 0 and calib.baseline > 0
     assert not calib.identity_maps          # EuRoC form builds remap grids
     assert calib.map_l[0].shape == (calib.height, calib.width)

@@ -51,10 +51,10 @@ def test_hamming_mxu_equals_popcount_and_numpy():
     d1 = rand_desc(33)
     d2 = rand_desc(47)
     j1, j2 = jnp.asarray(d1), jnp.asarray(d2)
-    f_mxu = jax.jit(D.hamming_distance_matrix)
+    f_mat = jax.jit(D.hamming_distance_matrix)
     f_pop = jax.jit(D.hamming_distance_matrix_popcount)
     ref = np_hamming(d1, d2)
-    np.testing.assert_array_equal(np.asarray(f_mxu(j1, j2)), ref)
+    np.testing.assert_array_equal(np.asarray(f_mat(j1, j2)), ref)
     np.testing.assert_array_equal(np.asarray(f_pop(j1, j2)), ref)
 
 

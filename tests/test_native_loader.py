@@ -9,8 +9,13 @@ import pytest
 
 from plslam_tpu.native import loader
 
-pytestmark = pytest.mark.skipif(
-    not loader.available(), reason="native library not built")
+
+@pytest.fixture(scope="module", autouse=True)
+def native_lib():
+    # decided here, not at import: the library is built from source on
+    # first use, and every test worker must collect the same tests
+    if not loader.available():
+        pytest.skip("native library could not be built (g++ and libpng)")
 
 try:
     import cv2
